@@ -1,26 +1,18 @@
-// ddp_tpu native runtime: diagnostics + URDF data loader.
+// ddp_jax native runtime: diagnostics.
 //
-// TPU-native equivalent of the reference's compiled runtime TU
+// Native equivalent of the reference's compiled runtime TU
 // (src/lib.cpp: colored assertion reporting, deduplicated log-file registry,
-// RAII chronometer) plus the URDF ingestion path the reference delegates to
-// urdfdom/pinocchio (pinocchio_model.ipp:98-113).  Exposed as a C ABI
-// consumed from Python via ctypes (no pybind11 in this image).
+// RAII chronometer).  Exposed as a C ABI consumed from Python via ctypes.
 //
 // Build: see cpp/Makefile (g++ -O2 -shared -fPIC).
 
 #include <chrono>
-#include <cmath>
-#include <cstdarg>
 #include <cstdint>
 #include <cstdio>
-#include <cstring>
-#include <fstream>
 #include <map>
 #include <memory>
 #include <mutex>
-#include <sstream>
 #include <string>
-#include <vector>
 
 // ---------------------------------------------------------------------------
 // diagnostics: log registry + chronometer + failure reporting
@@ -108,283 +100,6 @@ void ddp_report_failure(const char* kind, const char* expr, const char* file, in
                "  %s\n",
                kind, expr, file, line, message);
   std::fflush(stderr);
-}
-
-}  // extern "C"
-
-// ---------------------------------------------------------------------------
-// URDF parser: minimal XML scanner + robot extraction
-// ---------------------------------------------------------------------------
-
-namespace {
-
-// A tiny recursive-descent XML parser sufficient for URDF: elements,
-// attributes, self-closing tags, comments. No entities/CDATA/namespaces.
-struct XmlNode {
-  std::string tag;
-  std::map<std::string, std::string> attrs;
-  std::vector<XmlNode> children;
-};
-
-struct XmlParser {
-  const char* p;
-  const char* end;
-
-  explicit XmlParser(const std::string& s) : p(s.data()), end(s.data() + s.size()) {}
-
-  void skip_ws() {
-    while (p < end && (std::isspace(static_cast<unsigned char>(*p)) != 0)) ++p;
-  }
-
-  bool starts_with(const char* s) { return std::strncmp(p, s, std::strlen(s)) == 0; }
-
-  void skip_misc() {  // comments, PIs, doctype, text
-    for (;;) {
-      skip_ws();
-      if (p < end && *p != '<') {  // text content: URDF ignores it
-        while (p < end && *p != '<') ++p;
-        continue;
-      }
-      if (starts_with("<!--")) {
-        const char* c = std::strstr(p + 4, "-->");
-        p = (c != nullptr) ? c + 3 : end;
-      } else if (starts_with("<?") || starts_with("<!")) {
-        while (p < end && *p != '>') ++p;
-        if (p < end) ++p;
-      } else {
-        return;
-      }
-    }
-  }
-
-  std::string name() {
-    const char* s = p;
-    while (p < end && (std::isalnum(static_cast<unsigned char>(*p)) != 0 || *p == '_' || *p == '-' || *p == ':')) ++p;
-    return std::string(s, p);
-  }
-
-  bool parse_element(XmlNode* out) {
-    skip_misc();
-    if (p >= end || *p != '<' || p + 1 >= end || *(p + 1) == '/') return false;
-    ++p;  // '<'
-    out->tag = name();
-    // attributes
-    for (;;) {
-      skip_ws();
-      if (p < end && *p == '/') {  // self-closing
-        ++p;
-        if (p < end && *p == '>') ++p;
-        return true;
-      }
-      if (p < end && *p == '>') {
-        ++p;
-        break;
-      }
-      std::string key = name();
-      skip_ws();
-      if (p < end && *p == '=') ++p;
-      skip_ws();
-      char quote = (p < end) ? *p : '"';
-      if (quote == '"' || quote == '\'') ++p;
-      const char* s = p;
-      while (p < end && *p != quote) ++p;
-      out->attrs[key] = std::string(s, p);
-      if (p < end) ++p;
-    }
-    // children until closing tag
-    for (;;) {
-      skip_misc();
-      if (p + 1 < end && *p == '<' && *(p + 1) == '/') {
-        p += 2;
-        name();
-        skip_ws();
-        if (p < end && *p == '>') ++p;
-        return true;
-      }
-      XmlNode child;
-      if (!parse_element(&child)) return p >= end;
-      out->children.push_back(std::move(child));
-    }
-  }
-};
-
-std::vector<double> parse_floats(const std::string& s, size_t n, double fill = 0.0) {
-  std::vector<double> out;
-  std::istringstream is(s);
-  double v = 0;
-  while (is >> v) out.push_back(v);
-  out.resize(n, fill);
-  return out;
-}
-
-const XmlNode* find_child(const XmlNode& n, const char* tag) {
-  for (const auto& c : n.children)
-    if (c.tag == tag) return &c;
-  return nullptr;
-}
-
-std::string attr(const XmlNode* n, const char* key, const char* dflt) {
-  if (n == nullptr) return dflt;
-  auto it = n->attrs.find(key);
-  return it == n->attrs.end() ? dflt : it->second;
-}
-
-// Flat parse result consumed by Python.  Joint records keep URDF order;
-// tree assembly / fixed-joint merging stays in Python (it already exists
-// and is shape-policy, not parse work).
-struct UrdfData {
-  std::string robot_name;
-  std::vector<std::string> joint_names, joint_types, joint_parents, joint_children;
-  std::vector<double> joint_origin;  // per joint: xyz rpy (6)
-  std::vector<double> joint_axis;    // per joint: xyz (3)
-  // per joint (9): has_limit, has_lower, lower, has_upper, upper,
-  // has_velocity, velocity, has_effort, effort — presence flags mirror the
-  // Python backend's dict-of-present-attributes exactly
-  std::vector<double> joint_limit;
-  // per joint (3): has_mimic, multiplier (default 1), offset (default 0)
-  std::vector<double> joint_mimic;
-  std::vector<std::string> joint_mimic_joint;  // master joint name ("" if none)
-  std::vector<std::string> link_names;
-  std::vector<double> link_inertial;  // per link: mass, com xyz, com rpy, ixx ixy ixz iyy iyz izz (13)
-  std::string error;
-};
-
-std::mutex urdf_mu;
-std::map<int64_t, std::unique_ptr<UrdfData>> urdf_handles;
-int64_t next_urdf_id = 1;
-
-}  // namespace
-
-extern "C" {
-
-// Parse URDF XML (string). Returns handle id > 0, or 0 on failure.
-int64_t ddp_urdf_parse(const char* xml) {
-  auto data = std::make_unique<UrdfData>();
-  std::string src(xml);
-  XmlParser parser(src);
-  XmlNode root;
-  if (!parser.parse_element(&root) || root.tag != "robot") {
-    return 0;
-  }
-  data->robot_name = attr(&root, "name", "urdf_robot");
-  for (const auto& c : root.children) {
-    if (c.tag == "joint") {
-      data->joint_names.push_back(attr(&c, "name", ""));
-      data->joint_types.push_back(attr(&c, "type", "fixed"));
-      data->joint_parents.push_back(attr(find_child(c, "parent"), "link", ""));
-      data->joint_children.push_back(attr(find_child(c, "child"), "link", ""));
-      const XmlNode* origin = find_child(c, "origin");
-      auto xyz = parse_floats(attr(origin, "xyz", "0 0 0"), 3);
-      auto rpy = parse_floats(attr(origin, "rpy", "0 0 0"), 3);
-      data->joint_origin.insert(data->joint_origin.end(), xyz.begin(), xyz.end());
-      data->joint_origin.insert(data->joint_origin.end(), rpy.begin(), rpy.end());
-      auto ax = parse_floats(attr(find_child(c, "axis"), "xyz", "0 0 1"), 3);
-      data->joint_axis.insert(data->joint_axis.end(), ax.begin(), ax.end());
-      // <limit lower= upper= velocity= effort=> (pinocchio_model.ipp:98-113
-      // ingests these through urdfdom; parity with _records_from_etree)
-      const XmlNode* lim = find_child(c, "limit");
-      data->joint_limit.push_back(lim != nullptr ? 1.0 : 0.0);
-      for (const char* key : {"lower", "upper", "velocity", "effort"}) {
-        bool has = lim != nullptr && lim->attrs.count(key) != 0;
-        data->joint_limit.push_back(has ? 1.0 : 0.0);
-        data->joint_limit.push_back(has ? parse_floats(lim->attrs.at(key), 1)[0] : 0.0);
-      }
-      // <mimic joint= multiplier= offset=>
-      const XmlNode* mim = find_child(c, "mimic");
-      data->joint_mimic.push_back(mim != nullptr ? 1.0 : 0.0);
-      data->joint_mimic.push_back(parse_floats(attr(mim, "multiplier", "1"), 1)[0]);
-      data->joint_mimic.push_back(parse_floats(attr(mim, "offset", "0"), 1)[0]);
-      data->joint_mimic_joint.push_back(attr(mim, "joint", ""));
-    } else if (c.tag == "link") {
-      data->link_names.push_back(attr(&c, "name", ""));
-      const XmlNode* inertial = find_child(c, "inertial");
-      double mass = 0.0;
-      std::vector<double> com_xyz(3, 0.0), com_rpy(3, 0.0), I(6, 0.0);
-      if (inertial != nullptr) {
-        mass = parse_floats(attr(find_child(*inertial, "mass"), "value", "0"), 1)[0];
-        const XmlNode* origin = find_child(*inertial, "origin");
-        com_xyz = parse_floats(attr(origin, "xyz", "0 0 0"), 3);
-        com_rpy = parse_floats(attr(origin, "rpy", "0 0 0"), 3);
-        const XmlNode* it = find_child(*inertial, "inertia");
-        if (it != nullptr) {
-          I = {parse_floats(attr(it, "ixx", "0"), 1)[0], parse_floats(attr(it, "ixy", "0"), 1)[0],
-               parse_floats(attr(it, "ixz", "0"), 1)[0], parse_floats(attr(it, "iyy", "0"), 1)[0],
-               parse_floats(attr(it, "iyz", "0"), 1)[0], parse_floats(attr(it, "izz", "0"), 1)[0]};
-        }
-      }
-      data->link_inertial.push_back(mass);
-      data->link_inertial.insert(data->link_inertial.end(), com_xyz.begin(), com_xyz.end());
-      data->link_inertial.insert(data->link_inertial.end(), com_rpy.begin(), com_rpy.end());
-      data->link_inertial.insert(data->link_inertial.end(), I.begin(), I.end());
-    }
-  }
-  std::lock_guard<std::mutex> lock(urdf_mu);
-  int64_t id = next_urdf_id++;
-  urdf_handles.emplace(id, std::move(data));
-  return id;
-}
-
-int64_t ddp_urdf_n_joints(int64_t h) {
-  std::lock_guard<std::mutex> lock(urdf_mu);
-  auto it = urdf_handles.find(h);
-  return it == urdf_handles.end() ? -1 : static_cast<int64_t>(it->second->joint_names.size());
-}
-
-int64_t ddp_urdf_n_links(int64_t h) {
-  std::lock_guard<std::mutex> lock(urdf_mu);
-  auto it = urdf_handles.find(h);
-  return it == urdf_handles.end() ? -1 : static_cast<int64_t>(it->second->link_names.size());
-}
-
-// copy numeric blocks; buffers must be sized by the caller
-void ddp_urdf_joint_numeric(int64_t h, double* origin_out /*nj*6*/, double* axis_out /*nj*3*/) {
-  std::lock_guard<std::mutex> lock(urdf_mu);
-  auto it = urdf_handles.find(h);
-  if (it == urdf_handles.end()) return;
-  const auto& d = *it->second;
-  std::memcpy(origin_out, d.joint_origin.data(), d.joint_origin.size() * sizeof(double));
-  std::memcpy(axis_out, d.joint_axis.data(), d.joint_axis.size() * sizeof(double));
-}
-
-// per-joint limit (nj*9) + mimic (nj*3) blocks; see UrdfData layout comment
-void ddp_urdf_joint_limit_mimic(int64_t h, double* limit_out /*nj*9*/, double* mimic_out /*nj*3*/) {
-  std::lock_guard<std::mutex> lock(urdf_mu);
-  auto it = urdf_handles.find(h);
-  if (it == urdf_handles.end()) return;
-  const auto& d = *it->second;
-  std::memcpy(limit_out, d.joint_limit.data(), d.joint_limit.size() * sizeof(double));
-  std::memcpy(mimic_out, d.joint_mimic.data(), d.joint_mimic.size() * sizeof(double));
-}
-
-void ddp_urdf_link_inertial(int64_t h, double* out /*nl*13*/) {
-  std::lock_guard<std::mutex> lock(urdf_mu);
-  auto it = urdf_handles.find(h);
-  if (it == urdf_handles.end()) return;
-  const auto& d = *it->second;
-  std::memcpy(out, d.link_inertial.data(), d.link_inertial.size() * sizeof(double));
-}
-
-// string tables are fetched one entry at a time (simple & safe over ctypes)
-const char* ddp_urdf_string(int64_t h, const char* table, int64_t i) {
-  std::lock_guard<std::mutex> lock(urdf_mu);
-  auto it = urdf_handles.find(h);
-  if (it == urdf_handles.end()) return "";
-  const auto& d = *it->second;
-  const std::vector<std::string>* t = nullptr;
-  if (std::strcmp(table, "joint_name") == 0) t = &d.joint_names;
-  else if (std::strcmp(table, "joint_type") == 0) t = &d.joint_types;
-  else if (std::strcmp(table, "joint_parent") == 0) t = &d.joint_parents;
-  else if (std::strcmp(table, "joint_child") == 0) t = &d.joint_children;
-  else if (std::strcmp(table, "joint_mimic_joint") == 0) t = &d.joint_mimic_joint;
-  else if (std::strcmp(table, "link_name") == 0) t = &d.link_names;
-  else if (std::strcmp(table, "robot_name") == 0) return d.robot_name.c_str();
-  if (t == nullptr || i < 0 || i >= static_cast<int64_t>(t->size())) return "";
-  return (*t)[static_cast<size_t>(i)].c_str();
-}
-
-void ddp_urdf_free(int64_t h) {
-  std::lock_guard<std::mutex> lock(urdf_mu);
-  urdf_handles.erase(h);
 }
 
 }  // extern "C"

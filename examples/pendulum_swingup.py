@@ -1,10 +1,10 @@
 """Pendulum swing-up with a terminal equality constraint.
 
-The ddp_tpu analog of the reference driver test/pendulum_ddp.cpp: horizon
+The ddp_jax analog of the reference driver test/pendulum_ddp.cpp: horizon
 200, dt 0.01, target q = 3.14 enforced through a double time-advance
 constraint, primal-dual affine multipliers.
 
-Run: python examples/pendulum_swingup.py  (CPU or TPU)
+Run: python examples/pendulum_swingup.py  (CPU or GPU)
 """
 
 import os
@@ -15,15 +15,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from ddp_tpu import Method, SolverParams, solve
-from ddp_tpu.models.pendulum import pendulum
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
+from ddp_jax import Method, SolverParams, solve
+from ddp_jax.models.pendulum import pendulum
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
+from ddp_jax.utils.compile_cache import setup_compile_cache
 
 HORIZON, DT = 200, 0.01
 
 
 def main():
+    setup_compile_cache()
     dtype = jnp.float64 if jax.config.read("jax_enable_x64") else jnp.float32
     model = pendulum(mass=1.0, length=1.0, dtype=dtype)
     dyn = dynamics.euler(model, DT)

@@ -3,7 +3,7 @@
 This is the *reference-parity oracle* (BASELINE north star: "matching the
 reference C++ solver's control sequences within tolerance at the same horizon
 and iteration budget").  It re-implements, in plain Python/numpy with zero
-dependence on ddp_tpu, the exact algorithm the reference driver runs:
+dependence on ddp_jax, the exact algorithm the reference driver runs:
 
 - driver config:            /root/reference/test/pendulum_ddp.cpp:24-114
   (pendulum m=1 L=1, horizon 200, dt 0.01, target q=3.14 through a double

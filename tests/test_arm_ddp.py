@@ -11,11 +11,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ddp_tpu.models import base
-from ddp_tpu.models.robots import double_pendulum, ee_frame_id, ur5
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
-from ddp_tpu.solver.solve import Method, SolverParams, solve
+from ddp_jax.models import base
+from ddp_jax.models.robots import double_pendulum, ee_frame_id, ur5
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
+from ddp_jax.solver.solve import Method, SolverParams, solve
 
 DT = 0.01
 

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ddp_tpu.diagnostics.asserts import ddp_assert, ddp_assert_any_of, ddp_expect, val
+from ddp_jax.diagnostics.asserts import ddp_assert, ddp_assert_any_of, ddp_expect, val
 
 
 def test_all_of_passes_silently(capsys):

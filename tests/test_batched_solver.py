@@ -6,11 +6,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ddp_tpu.models.pendulum import pendulum
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
-from ddp_tpu.solver.batched import solve_batched
-from ddp_tpu.solver.solve import SolverParams, solve
+from ddp_jax.models.pendulum import pendulum
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
+from ddp_jax.solver.batched import solve_batched
+from ddp_jax.solver.solve import SolverParams, solve
 
 HORIZON = 100
 DT = 0.01
@@ -74,7 +74,7 @@ def test_batched_cholesky_failure_recovery():
 
 
 def test_batched_float32():
-    """f32 (the TPU bench dtype) solves to f32-appropriate tolerance."""
+    """f32 (the bench dtype) solves to f32-appropriate tolerance."""
     problem = make_problem(dtype=jnp.float32)
     params = SolverParams(max_iterations=30, threshold=1e-5, mu=1e4)
     x0s = jnp.zeros((4, 2), jnp.float32)
@@ -115,10 +115,9 @@ def test_batched_pallas_backend_matches_sweep():
 
 def test_matmul_precision_knob_plumbs_through():
     """matmul_precision pins every stage's matmul passes (the arm
-    feasibility-tail fix — docs/DESIGN.md 'bf16 matmul passes and the arm
-    feasibility tail').  On CPU all precisions are true f32/f64, so the
-    knob must be a bit-exact no-op here; the TPU effect is recorded in
-    results.jsonl arm_backend_sweep."""
+    feasibility-tail fix — docs/DESIGN.md 'Reduced-precision matmul passes
+    and the arm feasibility tail').  On CPU all precisions are true
+    f32/f64, so the knob must be a bit-exact no-op here."""
     problem = make_problem(dtype=jnp.float32)
     params = SolverParams(max_iterations=3, threshold=1e-5, mu=1e4, inner_iters_max=1)
     x0s = jnp.stack([jnp.asarray([0.1 * i, 0.0], jnp.float32) for i in range(4)])

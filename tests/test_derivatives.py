@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ddp_tpu.models.base import state_difference, state_integrate
-from ddp_tpu.models.pendulum import pendulum
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
+from ddp_jax.models.base import state_difference, state_integrate
+from ddp_jax.models.pendulum import pendulum
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
 
 HORIZON = 12
 DT = 0.01
@@ -182,7 +182,7 @@ def test_analytic_euler_jacobians_match_generic_arm():
     jacfwd over the whole Euler step at every timestep of a random
     trajectory (f64 oracle, ≙ the reference's chain-rule first_order_deriv
     vs its debug FD check, problem.hpp:999-1139)."""
-    from ddp_tpu.models.robots import ur5
+    from ddp_jax.models.robots import ur5
 
     arm = ur5(dtype=jnp.float64)
     q_t = arm.integrate(arm.neutral_configuration(),
@@ -220,8 +220,8 @@ def test_analytic_euler_jacobians_match_generic_manifold(which):
     d_integrate ∘ computeABADerivatives chain for freeflyer/spherical/
     planar joints (problem.hpp:463-503, pinocchio_model.ipp:222-321,
     359-400)."""
-    from ddp_tpu.models.rigid_body import all_joints_test_model
-    from ddp_tpu.models.robots import quadrotor
+    from ddp_jax.models.rigid_body import all_joints_test_model
+    from ddp_jax.models.robots import quadrotor
 
     model = quadrotor(dtype=jnp.float64) if which == "quadrotor" else (
         all_joints_test_model(dtype=jnp.float64)
@@ -259,7 +259,7 @@ def test_second_order_analytic_path_matches_generic_arm():
     vector-space models."""
     import dataclasses
 
-    from ddp_tpu.models.robots import ur5
+    from ddp_jax.models.robots import ur5
 
     arm = ur5(dtype=jnp.float64)
     dyn = dynamics.euler(arm, 0.01)

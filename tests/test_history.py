@@ -12,10 +12,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ddp_tpu.models.pendulum import pendulum
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
-from ddp_tpu.solver.solve import SolverParams, solve
+from ddp_jax.models.pendulum import pendulum
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
+from ddp_jax.solver.solve import SolverParams, solve
 
 HORIZON = 100
 DT = 0.01
@@ -125,7 +125,7 @@ def test_history_path_matches_while_loop_path():
 def test_history_feeds_convergence_trace(tmp_path):
     """ConvergenceTrace.record_history writes one primal/dual line per
     executed iteration (≙ /tmp/<name>_primal.dat, _dual.dat)."""
-    from ddp_tpu.diagnostics.profiling import ConvergenceTrace, format_history
+    from ddp_jax.diagnostics.profiling import ConvergenceTrace, format_history
 
     _, _, _, res = _solve_with_history()
     trace = ConvergenceTrace("hist_test", directory=str(tmp_path))
@@ -152,7 +152,7 @@ def test_batched_history_records_schedule():
     import jax.numpy as jnp
     import numpy as np
 
-    from ddp_tpu.solver.batched import solve_batched
+    from ddp_jax.solver.batched import solve_batched
 
     problem = make_problem(dtype=jnp.float64)
     params = SolverParams(max_iterations=5, threshold=1e-9, mu=1e5, inner_iters_max=1)

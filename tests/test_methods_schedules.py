@@ -1,6 +1,6 @@
 """Method-variant semantics and constraint-schedule combinators.
 
-Covers VERDICT round-1 items 6-8: the distinct PRIMAL method (zero multiplier
+Covers the distinct PRIMAL method (zero multiplier
 feedback, ≙ the reference's declared no_multiplier_feedback_t/zero_t wiring,
 ddp.hpp:365-371 + zero.hpp:8-42), the reference-startup random multiplier-jac
 init (ddp.hpp:760-764), and the every_k/in_range schedule helpers
@@ -12,11 +12,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ddp_tpu.models.pendulum import pendulum
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
-from ddp_tpu.solver import al as al_mod
-from ddp_tpu.solver.solve import Method, SolverParams, solve
+from ddp_jax.models.pendulum import pendulum
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
+from ddp_jax.solver import al as al_mod
+from ddp_jax.solver.solve import Method, SolverParams, solve
 
 
 def make_problem(horizon=60, dtype=jnp.float64, constraint=None):

@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ddp_tpu.models import base
-from ddp_tpu.models.robots import acrobot, cartpole, panda7, quadrotor
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
-from ddp_tpu.solver.solve import SolverParams, solve
+from ddp_jax.models import base
+from ddp_jax.models.robots import acrobot, cartpole, panda7, quadrotor
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
+from ddp_jax.solver.solve import SolverParams, solve
 
 
 @pytest.mark.parametrize("ctor,nv", [(panda7, 7), (cartpole, 2), (acrobot, 2), (quadrotor, 6)])
@@ -97,9 +97,9 @@ def test_quadrotor_attitude_reach_f32_batched():
     solve_batched with a ConfigTarget ON THE QUATERNION MANIFOLD — the
     SURVEY 'hard part' (robust quaternion integrate/difference under
     vmap/jit at f32) exercised at the solve level, not just dynamics smoke
-    (VERDICT r2 item 6).  ≙ the reference's SE(3)-configuration handling in
+   .  ≙ the reference's SE(3)-configuration handling in
     pinocchio_model.ipp:222-321."""
-    from ddp_tpu.solver.batched import solve_batched
+    from ddp_jax.solver.batched import solve_batched
 
     dtype = jnp.float32
     m = quadrotor(dtype=dtype)
@@ -151,8 +151,8 @@ def test_pendulum_bf16_batched_solve():
     """bf16 end-to-end batched solve (COMPONENTS.md #30 'bf16-capable'):
     the pendulum swing-up reaches feasibility at bf16's ~8-bit mantissa
     resolution.  Tolerances scale with eps(bf16)=2^-8."""
-    from ddp_tpu.models.pendulum import pendulum
-    from ddp_tpu.solver.batched import solve_batched
+    from ddp_jax.models.pendulum import pendulum
+    from ddp_jax.solver.batched import solve_batched
 
     dtype = jnp.bfloat16
     model = pendulum(1.0, 1.0, dtype=dtype)
@@ -188,12 +188,11 @@ def test_quadrotor_constrained_solve_end_to_end():
     """Freeflyer (quaternion) StateTarget solve through the manifold
     analytic-Jacobian fast path (round-4): hover → displaced hover with a
     gravity-compensation warm start reaches the 12-dim terminal constraint.
-    TPU fleet version: benchmarks/quadrotor_state_eq.py (100% feasible at
-    p99 9.9e-4)."""
-    from ddp_tpu.models import base
-    from ddp_tpu.ocp import constraints, costs, dynamics
-    from ddp_tpu.ocp.problem import Problem
-    from ddp_tpu.solver.solve import SolverParams, solve
+    Fleet version: the quadrotor cell in benchmarks/_common.py."""
+    from ddp_jax.models import base
+    from ddp_jax.ocp import constraints, costs, dynamics
+    from ddp_jax.ocp.problem import Problem
+    from ddp_jax.solver.solve import SolverParams, solve
 
     quad = quadrotor(dtype=jnp.float64)
     H = 24

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ddp_tpu.kernels.riccati_small import backward_sweep_pallas, pack_batch_last
-from ddp_tpu.models.pendulum import pendulum
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
-from ddp_tpu.solver import al as al_mod
-from ddp_tpu.solver.batched import _backward_sweep
+from ddp_jax.kernels.riccati_small import backward_sweep_pallas, pack_batch_last
+from ddp_jax.models.pendulum import pendulum
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
+from ddp_jax.solver import al as al_mod
+from ddp_jax.solver.batched import _backward_sweep
 
 
 def make_batch(B=8, H=16, dtype=jnp.float32):
@@ -145,8 +145,8 @@ def test_pallas_backward_second_order_matches_xla():
 def test_solve_batched_pallas_second_order():
     """Full second-order DDP solve through the pallas backward reaches the
     same optimum as the XLA sweep."""
-    from ddp_tpu.solver.batched import solve_batched
-    from ddp_tpu.solver.solve import SolverParams
+    from ddp_jax.solver.batched import solve_batched
+    from ddp_jax.solver.solve import SolverParams
 
     H = 24
     model = pendulum(1.0, 1.0, dtype=jnp.float32)
@@ -181,8 +181,8 @@ def test_solve_batched_single_reg_level():
     """n_reg_levels=1 (the bench headline config) must match the 4-level
     default wherever the ladder never fires — on the GN pendulum Quu stays
     PD, so results are identical."""
-    from ddp_tpu.solver.batched import solve_batched
-    from ddp_tpu.solver.solve import SolverParams
+    from ddp_jax.solver.batched import solve_batched
+    from ddp_jax.solver.solve import SolverParams
 
     H = 16
     problem = make_batch(4, H)[0]
@@ -205,10 +205,9 @@ def test_pallas_backward_arm_dims_matches_xla():
     """Arm-class dimensions (UR5: n=12, m=6, e=6 — BASELINE configs[3],
     test/pinocchio_ddp.cpp:35-68): the kernel's unrolled index algebra,
     Cholesky, and AL terms must match the XLA sweep well beyond pendulum
-    dims.  f64 interpret mode pins the math; the f32 TPU behavior is
-    benchmarked separately (benchmarks/arm_backend_sweep.py)."""
-    from ddp_tpu.models import base
-    from ddp_tpu.models.robots import ur5
+    dims.  f64 interpret mode pins the math."""
+    from ddp_jax.models import base
+    from ddp_jax.models.robots import ur5
 
     B, H = 4, 10
     arm = ur5()
@@ -263,41 +262,52 @@ def test_pallas_backward_arm_dims_matches_xla():
     np.testing.assert_array_equal(np.asarray(ok_p), np.asarray(ok_ref))
 
 
-def test_pallas_block_autosizing_fits_vmem_at_arm_dims():
-    """The default block_b must shrink at arm dims: a 512-lane block at
-    (n=12, m=6, e=6, T=16) is a ~24 MB slab that cannot fit VMEM even
-    time-chunked (chunking bottoms at chunk=8 → ~12 MB)."""
-    from ddp_tpu.solver.batched import _pallas_block_plan
-
-    # pendulum dims: full 512 lanes, no chunking needed at T=32
-    blk, chunk = _pallas_block_plan(
-        B=4096, T=32, n=2, m=1, e=1, second_order=False, itemsize=4
-    )
-    assert blk == 512 and chunk == 32
-    # arm dims: lane block must drop so the slab fits the ~8 MB budget
-    blk, chunk = _pallas_block_plan(
-        B=4096, T=16, n=12, m=6, e=6, second_order=False, itemsize=4
-    )
-    rows = 2 * (12 + 6 + 144 + 72 + 36) + 6 * (2 + 24 + 6) + 2
-    assert blk % 128 == 0 and 4096 % blk == 0
-    assert chunk * rows * blk * 4 <= 8 * 2**20
-
-
-def test_pallas_time_chunked_matches_single_call():
-    """Long-horizon chunked sweep (carrying Vx/Vxx between launches) must
-    reproduce the single-launch result exactly."""
-    B, H = 8, 24
+def _compare(B, H, block_b=None):
     problem, derivs, mults = make_batch(B, H)
     mu = jnp.full((B,), 1e3, jnp.float32)
     reg = jnp.zeros((B,), jnp.float32)
+    k_ref, K_ref, ok_ref = jax.vmap(
+        lambda d, mv, mj, m, r: _backward_sweep(d, mv, mj, m, r)
+    )(derivs, mults.val, mults.jac, mu, reg)
     packed = pack_batch_last(derivs, mults.val, mults.jac)
-    k1, K1, ok1 = backward_sweep_pallas(
-        packed, mu, reg, T=H, n=2, m=1, e=1, block_b=8, interpret=True
+    k_p, K_p, ok_p = backward_sweep_pallas(
+        packed, mu, reg, T=H, n=2, m=1, e=1, block_b=block_b, interpret=True
     )
-    k2, K2, ok2 = backward_sweep_pallas(
-        packed, mu, reg, T=H, n=2, m=1, e=1, block_b=8, interpret=True,
-        time_chunk=6,
-    )
-    np.testing.assert_array_equal(np.asarray(k1), np.asarray(k2))
-    np.testing.assert_array_equal(np.asarray(K1), np.asarray(K2))
-    np.testing.assert_array_equal(np.asarray(ok1), np.asarray(ok2))
+    assert k_p.shape == (H, 1, B) and K_p.shape == (H, 2, B) and ok_p.shape == (B,)
+    k_p_bt = jnp.transpose(k_p, (2, 0, 1))
+    K_p_bt = jnp.transpose(K_p.reshape(H, 1, 2, B), (3, 0, 1, 2))
+    np.testing.assert_allclose(np.asarray(k_p_bt), np.asarray(k_ref), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(np.asarray(K_p_bt), np.asarray(K_ref), rtol=2e-4, atol=2e-5)
+    np.testing.assert_array_equal(np.asarray(ok_p), np.asarray(ok_ref))
+
+
+@pytest.mark.parametrize("B,block_b", [(12, 8), (5, None)])
+def test_pallas_backward_pads_batch_to_block(B, block_b):
+    """A batch that is not a multiple of the (power-of-two) block is padded
+    up to it and the padding is cut from every output."""
+    _compare(B, 16, block_b)
+
+
+def test_pallas_backward_non_power_of_two_horizon():
+    """The time loop runs inside the kernel, so any horizon is one launch:
+    T=13 needs no chunking and no power-of-two rounding."""
+    _compare(8, 13, 8)
+
+
+@pytest.mark.parametrize(
+    "n,expect", [(4096, 32), (1 << 16, 128), (20000, 128), (256, 32), (1, 32)]
+)
+def test_lane_block_fills_the_card(n, expect):
+    """The default block is the widest power of two (≤ 128 samples, ≥ one
+    warp) that still gives enough programs to fill the card's SMs."""
+    from ddp_jax.kernels.riccati_small import lane_block
+
+    assert lane_block(n) == expect
+
+
+def test_block_must_be_power_of_two():
+    from ddp_jax.kernels.riccati_small import check_block
+
+    check_block(64)
+    with pytest.raises(ValueError, match="power-of-two"):
+        check_block(96)

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ddp_tpu.models.pendulum import pendulum
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
-from ddp_tpu.solver import al as al_mod
-from ddp_tpu.solver.batched import _backward_sweep
-from ddp_tpu.solver.parallel_riccati import backward_pass_assoc
+from ddp_jax.models.pendulum import pendulum
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
+from ddp_jax.solver import al as al_mod
+from ddp_jax.solver.batched import _backward_sweep
+from ddp_jax.solver.parallel_riccati import backward_pass_assoc
 
 
 def make_derivs(H=64, seed=0, with_constraint=True):
@@ -90,8 +90,8 @@ def test_assoc_long_horizon_finite():
 def test_solve_batched_with_assoc_backward():
     """Full batched solve using the associative-scan backward pass on a
     long horizon matches the sequential-sweep path."""
-    from ddp_tpu.solver.batched import solve_batched
-    from ddp_tpu.solver.solve import SolverParams
+    from ddp_jax.solver.batched import solve_batched
+    from ddp_jax.solver.solve import SolverParams
 
     H = 256
     dtype = jnp.float64

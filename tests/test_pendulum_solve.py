@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from ddp_tpu.models.pendulum import pendulum
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
-from ddp_tpu.solver.solve import Method, SolverParams, solve
+from ddp_jax.models.pendulum import pendulum
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
+from ddp_jax.solver.solve import Method, SolverParams, solve
 
 HORIZON = 200
 DT = 0.01
@@ -73,7 +73,7 @@ def test_pendulum_swingup_ilqr_mode():
 
 
 def test_solve_vmap_batch():
-    """The whole solve vmaps over initial states (the primary TPU scaling
+    """The whole solve vmaps over initial states (the primary batch scaling
     axis, SURVEY.md §2 parallelism table)."""
     problem = make_problem()
     params = SolverParams(max_iterations=60, threshold=1e-9, mu=1e8)
@@ -99,7 +99,7 @@ def test_constraint_satisfied_exactly_at_optimum():
 def test_stacked_and_trajectory_constraints():
     """StackConstraints (row-concat analog) + TrajectoryConfigTarget with a
     periodic schedule solve end-to-end."""
-    from ddp_tpu.ocp.constraints import StackConstraints, TrajectoryConfigTarget
+    from ddp_jax.ocp.constraints import StackConstraints, TrajectoryConfigTarget
 
     H = 60
     dtype = jnp.float64

@@ -11,17 +11,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ddp_tpu.models.pendulum import pendulum
-from ddp_tpu.ocp import constraints, costs, dynamics
-from ddp_tpu.ocp.problem import Problem
-from ddp_tpu.solver import al as al_mod
-from ddp_tpu.solver.batched import _backward_sweep
-from ddp_tpu.solver.precise import (
+from ddp_jax.models.pendulum import pendulum
+from ddp_jax.ocp import constraints, costs, dynamics
+from ddp_jax.ocp.problem import Problem
+from ddp_jax.solver import al as al_mod
+from ddp_jax.solver.batched import _backward_sweep
+from ddp_jax.solver.precise import (
     al_cost_total_tf,
     backward_sweep_tf,
     optimality_lag_tf,
 )
-from ddp_tpu.solver.solve import SolverParams, solve
+from ddp_jax.solver.solve import SolverParams, solve
 
 
 def make_problem(horizon=40, dtype=jnp.float64, mu_target=3.14):
@@ -50,7 +50,7 @@ def _as32(tree):
 
 def test_tf_backward_sweep_beats_f32_vs_f64_oracle():
     """The TF Riccati sweep on f32 inputs lands (much) nearer the f64 sweep
-    than the plain f32 sweep does — the on-TPU oracle role of MPFR-1000."""
+    than the plain f32 sweep does — the on-device oracle role of MPFR-1000."""
     T, mu = 100, 1e7
     problem = make_problem(horizon=T)
     x0 = jnp.asarray([0.4, 0.0])
@@ -104,7 +104,7 @@ def test_tf_al_cost_resolves_sub_eps_deltas():
     mults = al_mod.init_multipliers(problem32, xs_a)
     mu = jnp.float32(1e6)
 
-    from ddp_tpu.ops import twofloat as tf
+    from ddp_jax.ops import twofloat as tf
 
     tot_a = al_cost_total_tf(problem32, xs_a, us_a, mults, mu)
     tot_b = al_cost_total_tf(problem32, xs_b, us_b, mults, mu)
@@ -150,8 +150,8 @@ def test_tf_mult_accumulation_tracks_f64():
     ≥10× closer than plain f32 over a long realistic schedule (small origin
     moves, small increments on a post-escalation O(1e4) base).  ≙ the
     reference's MPFR multiplier threading (pinocchio_model.hpp:15,
-    ddp.hpp:677-695); VERDICT r2 item 4."""
-    from ddp_tpu.solver.precise import MultsTF, mult_update_tf, update_origin_tf
+    ddp.hpp:677-695)."""
+    from ddp_jax.solver.precise import MultsTF, mult_update_tf, update_origin_tf
 
     rng = np.random.default_rng(3)
     T, ne, K, mu = 16, 2, 300, 1.0
@@ -205,8 +205,7 @@ def test_tf_mult_accumulation_tracks_f64():
 @pytest.mark.slow
 def test_precise_solve_tightens_f32_floor():
     """An f32 solve with the TF envelope reaches a tighter constraint/
-    stationarity floor than the plain f32 solve, approaching the f64 run
-    (VERDICT round-1 item 2's acceptance test)."""
+    stationarity floor than the plain f32 solve, approaching the f64 run."""
     params = SolverParams(max_iterations=40, threshold=1e-7, mu=1e6)
     x0_32 = jnp.zeros(2, jnp.float32)
 
@@ -266,7 +265,7 @@ def test_tf_optimality_matches_f64():
 
 def test_batched_tf_backend_full_solve():
     """backward="tf" is a drop-in batched backend."""
-    from ddp_tpu.solver.batched import solve_batched
+    from ddp_jax.solver.batched import solve_batched
 
     problem = make_problem(horizon=30, dtype=jnp.float32)
     params = SolverParams(max_iterations=12, threshold=1e-5, mu=1e4)
@@ -285,7 +284,7 @@ def test_storage_mode_closes_f32_floor():
     round-5 TF-EVALUATED JACOBIANS — the full-stack MPFR-instantiation
     analog, problem.hpp:50-341 Scalar-templated) reaches an ABSOLUTE
     stationarity target on the T=60 driver config where the envelope mode
-    stalls at its f32 storage floor (docs/DESIGN.md; VERDICT r4 item 5).
+    stalls at its f32 storage floor (docs/DESIGN.md).
 
     Measured: plain f32 opt_lag ~5e-2, envelope ~7e-3, storage-with-hi-
     Jacobians 2.7e-6 (the round-4 Jacobian-evaluation floor), storage with
@@ -293,7 +292,7 @@ def test_storage_mode_closes_f32_floor():
     params = SolverParams(max_iterations=40, threshold=1e-9, mu=1e6)
     x0 = jnp.zeros(2, jnp.float32)
     p32 = make_problem(horizon=60, dtype=jnp.float32)
-    from ddp_tpu.solver import precise as precise_mod
+    from ddp_jax.solver import precise as precise_mod
 
     assert precise_mod.supports_tf_jacobians(p32)
     res = jax.jit(lambda x: solve(p32, params, x, precise="storage"))(x0)
@@ -306,9 +305,9 @@ def test_storage_mode_closes_f32_floor():
 
 def test_storage_mode_requires_tf_support():
     """Models without forward_dynamics_tf reject precise="storage" loudly."""
-    from ddp_tpu.models.robots import ur5
-    from ddp_tpu.models import base
-    from ddp_tpu.ocp import constraints as con_mod
+    from ddp_jax.models.robots import ur5
+    from ddp_jax.models import base
+    from ddp_jax.ocp import constraints as con_mod
 
     arm = ur5(dtype=jnp.float32)
     dyn = dynamics.euler(arm, 0.01)
@@ -328,7 +327,7 @@ def test_storage_mode_requires_tf_support():
 
 
 def test_storage_mode_vmaps():
-    """precise="storage" composes with vmap (the primary TPU scaling axis):
+    """precise="storage" composes with vmap (the primary batch scaling axis):
     TF pairs are ordinary pytree leaves, so the batched solve carries
     [B, ...] hi/lo arrays."""
     problem = make_problem(horizon=30, dtype=jnp.float32)

@@ -1,4 +1,4 @@
-"""Reference-parity: ddp_tpu vs a transliteration of the reference solver.
+"""Reference-parity: ddp_jax vs a transliteration of the reference solver.
 
 Discharges the BASELINE north-star correctness bar — "matching the reference
 C++ solver's control sequences within tolerance at the same horizon and
@@ -25,7 +25,7 @@ problem.hpp on the pendulum driver config, test/pendulum_ddp.cpp:24-114):
    tests/golden_pendulum_reference.npz; the f64 oracle run of the same
    config reproduces them to ~9e-9 (its noise floor).
 
-3. *Optimum parity* (the north star): ddp_tpu's float-native schedule in
+3. *Optimum parity* (the north star): ddp_jax's float-native schedule in
    ordinary f64 — μ₀=1e8, same horizon 200, within the same 200-iteration
    budget (converges in ~47) — matches the golden MPFR-analog control
    sequence to max|Δu| ≤ 1e-9 (measured 7.4e-12): hardware floats + the
@@ -38,10 +38,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from tests.reference_oracle import solve_pendulum_reference
-from tests.test_pendulum_solve import HORIZON, make_problem
+from reference_oracle import solve_pendulum_reference
+from test_pendulum_solve import HORIZON, make_problem
 
-from ddp_tpu.solver.solve import Method, SolverParams, solve
+from ddp_jax.solver.solve import Method, SolverParams, solve
 
 GOLDEN = "tests/golden_pendulum_reference.npz"
 
@@ -103,7 +103,7 @@ def test_oracle_f64_reproduces_mpmath_golden():
 
 
 def test_solve_matches_reference_golden_controls():
-    """North star: same horizon (200), same iteration budget (≤200), ddp_tpu
+    """North star: same horizon (200), same iteration budget (≤200), ddp_jax
     f64 with the float-native schedule lands on the reference's (MPFR-analog)
     control sequence."""
     g = _golden()
@@ -132,7 +132,7 @@ def _gate_seq(history, k):
 
 @pytest.mark.slow
 def test_decision_sequence_parity_vs_mpmath_oracle():
-    """Decision-sequence parity (VERDICT r4 item 6): the *gate outcome
+    """Decision-sequence parity: the *gate outcome
     stream* of solve(reference_schedule=True) in f64 matches the mpmath
     dps=120 oracle (≙ the reference's MPFR instantiation of the
     ddp.hpp:677-695 decision tree), decision for decision, as far as the
@@ -152,7 +152,7 @@ def test_decision_sequence_parity_vs_mpmath_oracle():
       implementation cannot resolve any μ=1e20-scaled measure at 1e-20
       (noise floor μ·eps₆₄ ≈ 2e4), so the gate stream past 14 is
       MPFR-only by construction, not an implementation difference (the f64
-      oracle transliteration reads "none" there too, matching ddp_tpu).
+      oracle transliteration reads "none" there too, matching ddp_jax).
     """
     mpmath = pytest.importorskip("mpmath")
     mpmath.mp.dps = 120

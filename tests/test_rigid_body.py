@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ddp_tpu.models import base
-from ddp_tpu.models.pendulum import pendulum
-from ddp_tpu.models.rigid_body import (
+from ddp_jax.models import base
+from ddp_jax.models.pendulum import pendulum
+from ddp_jax.models.rigid_body import (
     all_joints_test_model,
     build_model,
     double_pendulum,
@@ -146,7 +146,7 @@ def test_implicit_fd_jacobians_match_direct(model):
 def test_energy_conservation_double_pendulum():
     """Unforced double pendulum conserves energy under fine RK4 rollout."""
     model = double_pendulum()
-    from ddp_tpu.ocp.dynamics import rk4
+    from ddp_jax.ocp.dynamics import rk4
 
     dyn = rk4(model, 0.001)
     x = base.state_pack(jnp.asarray([0.8, -0.4]), jnp.asarray([0.0, 0.0]))
@@ -162,7 +162,7 @@ def test_energy_conservation_double_pendulum():
 
 def test_energy_conservation_all_joints(model):
     """Free-floating all-joints chain conserves energy (gravity included)."""
-    from ddp_tpu.ocp.dynamics import rk4
+    from ddp_jax.ocp.dynamics import rk4
 
     dyn = rk4(model, 0.0005)
     k1, k2 = jax.random.split(jax.random.key(7))
@@ -233,7 +233,7 @@ def test_frame_jacobian_vs_fd(model):
 
 
 def test_vmap_and_jit_compatibility(model):
-    """All dynamics entry points vmap and jit (the TPU batching axis)."""
+    """All dynamics entry points vmap and jit (the batching axis)."""
     keys = jax.random.split(jax.random.key(0), 4)
     qs = jnp.stack([rand_q(model, k) for k in keys])
     vs = jnp.stack([rand_v(model, k) for k in keys])

@@ -1,15 +1,15 @@
-"""Double-float arithmetic: ~2× working precision on plain VPU ops.
+"""Double-float arithmetic: ~2× working precision on plain elementwise ops.
 
 The f64-on-CPU suite plays the reference's MPFR-oracle role (SURVEY.md §4);
 these tests pin that the f32-pair arithmetic reaches ~f64 accuracy — the
-TPU-native multiprecision envelope (SURVEY.md §2 #30).
+float multiprecision envelope (SURVEY.md §2 #30).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ddp_tpu.ops import twofloat as tf
+from ddp_jax.ops import twofloat as tf
 
 
 def _rand(n, seed=0):
